@@ -1,51 +1,32 @@
-"""Multi-device scaling harness for the sharded modset build.
+"""Multi-GPU weak-scaling harness for the sharded modset build.
 
-BASELINE.md's scaling row asks for >=80% efficiency at 2 hosts.  Real
-multi-chip hardware is not attached in this environment, so this harness
-measures the full sharded pipeline (per-device scan -> all_to_all routing ->
-sorted segment-reduce merge) over an N-device mesh of whatever platform is
-available:
+Measures the full sharded pipeline (per-device scan -> all_to_all routing
+-> sorted segment-reduce merge) over 1, 2, 4 and 8-GPU meshes, as many as
+the machine has.  Weak scaling: each device gets a fixed CHUNK of stream
+positions per step, so perfect scaling keeps step time flat as n grows;
+efficiency(n) = t(1 device) / t(n devices).
 
-  * default: the virtual CPU mesh (XLA_FLAGS=--xla_force_host_platform_
-    device_count=8 JAX_PLATFORMS=cpu) -- validates that per-device work
-    stays constant as devices grow (weak scaling), which is the property
-    that carries to ICI;
-  * on a real pod slice the same script runs unchanged and the printed
-    efficiency is the ICI number.
+Exits non-zero unless JAX's devices are GPUs: a virtual CPU mesh shares
+one host's cores, so its times say nothing about the interconnect (the CPU
+rehearsal of the same path is __graft_entry__.dryrun_multichip).
 
-Weak scaling: each device gets a fixed CHUNK of stream positions per step;
-perfect scaling keeps step time flat as n grows.  Efficiency(n) =
-t(1 device) / t(n devices) with n-proportional total work.
-
-Usage:  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-            python bench_scaling.py
-Prints one JSON line per mesh size plus a summary efficiency line.
+Usage:  python bench_scaling.py
+Prints one JSON line per mesh size plus one efficiency line per n > 1.
 """
 
 import json
-import os
 import time
 
-# Default to the virtual CPU mesh; set MODIMIZER_SCALING_REAL=1 on an actual
-# pod slice to measure ICI with the inherited platform instead.
-if os.environ.get("MODIMIZER_SCALING_REAL") != "1":
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    if "--xla_force_host_platform_device_count" not in os.environ.get(
-            "XLA_FLAGS", ""):
-        os.environ["XLA_FLAGS"] = (
-            os.environ.get("XLA_FLAGS", "")
-            + " --xla_force_host_platform_device_count=8").strip()
+import numpy as np
 
-import numpy as np  # noqa: E402
+import modimizer
 
-import modimizer_tpu  # noqa: E402
-
-modimizer_tpu.configure_jax()
+modimizer.configure_jax()
 import jax  # noqa: E402
 
-from modimizer_tpu.core.seqhash import Seqhash  # noqa: E402
-from modimizer_tpu.parallel.sharded import (ShardedModsetBuilder,  # noqa: E402
-                                            build_mesh)
+from modimizer.core.seqhash import Seqhash  # noqa: E402
+from modimizer.parallel.sharded import (ShardedModsetBuilder,  # noqa: E402
+                                        build_mesh)
 
 CHUNK = 1 << 18          # positions per device per step
 STEPS = 4                # timed steps
@@ -78,30 +59,21 @@ def run(n_dev):
 
 
 def main():
+    if jax.devices()[0].platform != "gpu":
+        raise SystemExit("bench_scaling.py: JAX found no GPU (platform "
+                         f"{jax.devices()[0].platform!r}); nothing measured")
     sizes = [n for n in (1, 2, 4, 8) if n <= jax.device_count()]
     times = {}
     for n in sizes:
         dt, rate, uniq = run(n)
         times[n] = dt
         print(json.dumps({"devices": n, "time_s": round(dt, 3),
-                          "rate_mpos_s": round(rate, 1), "unique": uniq}))
-    if len(sizes) > 1:
-        base = times[sizes[0]]
-        on_cpu = jax.devices()[0].platform == "cpu"
-        for n in sizes[1:]:
-            if on_cpu:
-                # Virtual devices share this host's cores, so t(n) ~ n*t(1)
-                # even with zero communication cost; report the per-work
-                # overhead factor instead (1.0 = routing/merge adds nothing
-                # beyond the n-fold serialized compute).  True ICI efficiency
-                # needs real chips: MODIMIZER_SCALING_REAL=1 on a pod slice.
-                print(json.dumps({"metric": "per_work_overhead_factor",
-                                  "devices": n,
-                                  "value": round(times[n] / (n * base), 3)}))
-            else:
-                print(json.dumps({"metric": "weak_scaling_efficiency",
-                                  "devices": n,
-                                  "value": round(base / times[n], 3)}))
+                          "rate_mpos_s": round(rate, 1), "unique": uniq,
+                          "kind": jax.devices()[0].device_kind}))
+    for n in sizes[1:]:
+        print(json.dumps({"metric": "weak_scaling_efficiency",
+                          "devices": n,
+                          "value": round(times[sizes[0]] / times[n], 3)}))
 
 
 if __name__ == "__main__":

@@ -13,5 +13,5 @@ def launch(tool):
     if repo not in sys.path:
         sys.path.insert(0, repo)
     import importlib
-    mod = importlib.import_module(f"modimizer_tpu.cli.{tool}")
+    mod = importlib.import_module(f"modimizer.cli.{tool}")
     mod.main()

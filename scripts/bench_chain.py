@@ -1,6 +1,7 @@
 """Measure modmap -q chaining: batched device lax.scan (parallel/chain.py)
 vs the native automaton + text emission (mm_query_emit) at 100k+ reads
-(VERDICT r2 item 6; results recorded in docs/PERF.md round 3).
+(the earlier accelerator's result is summarised in docs/PERF.md; not
+yet timed on the GPU).
 
 Usage: python scripts/bench_chain.py [n_reads=100000] [seeds_per_read=30]
 """
@@ -50,7 +51,7 @@ def main():
     print(f"{n_reads} reads, {len(sidx)} seeds", file=sys.stderr)
 
     # ---- native automaton + text emission to /dev/null ----
-    from modimizer_tpu.native import lib as native_lib
+    from modimizer.native import lib as native_lib
     L = native_lib()
     n_names = int(rid.max()) + 1
     names = b"".join(b"ref%d\0" % i for i in range(n_names))
@@ -93,7 +94,7 @@ def main():
         pass
     ref.ms = MS()
     ref.ms.info = info
-    from modimizer_tpu.parallel.chain import chain_records
+    from modimizer.parallel.chain import chain_records
     t0 = time.perf_counter()
     out = chain_records(ref, sidx, spos, seed_off)
     t_first = time.perf_counter() - t0   # includes compile

@@ -40,14 +40,14 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=4").strip()
 sys.path.insert(0, %(repo)r)
 import numpy as np
-import modimizer_tpu
+import modimizer
 import jax
 jax.config.update("jax_platforms", "cpu")
 if nproc > 1:
     jax.distributed.initialize(coordinator_address=coord, num_processes=nproc,
                                process_id=pid)
-from modimizer_tpu.core.seqhash import Seqhash
-from modimizer_tpu.parallel.sharded import build_mesh
+from modimizer.core.seqhash import Seqhash
+from modimizer.parallel.sharded import build_mesh
 sh = Seqhash.create(16, 16, 17)
 # per-host stream: disjoint read sets per host (weak scaling)
 rng = np.random.default_rng(1000 + pid)
@@ -56,11 +56,11 @@ codes = rng.integers(0, 4, size=int(lens.sum())).astype(np.uint8)
 offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
 mesh = build_mesh()
 if nproc > 1:
-    from modimizer_tpu.parallel.multihost import MultiHostModsetBuilder
+    from modimizer.parallel.multihost import MultiHostModsetBuilder
     b = MultiHostModsetBuilder(sh, mesh, chunk_per_dev=1 << chunk_log2,
                                state_size=1 << 22)
 else:
-    from modimizer_tpu.parallel.sharded import ShardedModsetBuilder
+    from modimizer.parallel.sharded import ShardedModsetBuilder
     b = ShardedModsetBuilder(sh, mesh, chunk_per_dev=1 << chunk_log2,
                              state_size=1 << 22)
 # warm-up compile on a tiny prefix

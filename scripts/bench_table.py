@@ -17,8 +17,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import numpy as np
 
-from modimizer_tpu.core.modset import Modset
-from modimizer_tpu.core.seqhash import Seqhash
+from modimizer.core.modset import Modset
+from modimizer.core.seqhash import Seqhash
 
 BITS = int(sys.argv[1]) if len(sys.argv) > 1 else 25
 NU_LOG2 = int(sys.argv[2]) if len(sys.argv) > 2 else 22

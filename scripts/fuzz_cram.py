@@ -19,7 +19,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from modimizer_tpu.io import cramio, seqio
+from modimizer.io import cramio, seqio
 
 BASES = np.frombuffer(b"ACGT", np.uint8)
 

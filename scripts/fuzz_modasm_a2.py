@@ -4,7 +4,7 @@ import numpy as np
 from tests.golden import harness
 D = "/tmp/modimizer_fuzz"
 sys.path.insert(0, "/root/repo")
-from modimizer_tpu.core.modset import Modset
+from modimizer.core.modset import Modset
 MA = str(harness.build_tool("modasm"))
 PY = [sys.executable, "/root/repo/bin/modasm"]
 

@@ -14,7 +14,7 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from modimizer_tpu.io.onecode import (CHAR, DNA, INT, INT_LIST, REAL,
+from modimizer.io.onecode import (CHAR, DNA, INT, INT_LIST, REAL,
                                       REAL_LIST, STRING, STRING_LIST,
                                       TYPE_NAME, OneFile, OneSchema)
 

@@ -1,6 +1,6 @@
 """Mesh-path differential fuzzer: sharded build / merge / lookup vs the
 sequential oracles on randomized parameters over 1/2/4/8 virtual CPU
-devices (VERDICT r2 item 5).
+devices.
 
 Randomizes k, w (incl. non-pow2), seed, read layouts (incl. overflow-
 forcing low-complexity runs), builder chunk/state/cap sizes chosen to
@@ -25,20 +25,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-import modimizer_tpu
+import modimizer
 
-modimizer_tpu.configure_jax()
+modimizer.configure_jax()
 
 import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from modimizer_tpu.core.modset import Modset
-from modimizer_tpu.core.seqhash import Seqhash
-from modimizer_tpu.ops.seqhash import (ModimizerScanner,
+from modimizer.core.modset import Modset
+from modimizer.core.seqhash import Seqhash
+from modimizer.ops.seqhash import (ModimizerScanner,
                                        first_encounter_unique)
-from modimizer_tpu.parallel.lookup import DeviceTable
-from modimizer_tpu.parallel.sharded import (BLK, ShardedModsetBuilder,
+from modimizer.parallel.lookup import DeviceTable
+from modimizer.parallel.sharded import (BLK, ShardedModsetBuilder,
                                             build_mesh, sharded_merge)
 
 

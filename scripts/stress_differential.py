@@ -78,7 +78,7 @@ def pair(tool, args, files=(), cwds=None):
             # byte compare is meaningless; compare every parsed field
             # (and the shared .mod twin byte-exactly via the caller)
             import numpy as np
-            from modimizer_tpu.core.readset import Readset
+            from modimizer.core.readset import Readset
             stem = os.path.join(dc, fn[:-len(".readset")])
             stem_p = os.path.join(dp, fn[:-len(".readset")])
             ra, rb = Readset.read(stem), Readset.read(stem_p)

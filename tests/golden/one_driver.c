@@ -1,6 +1,6 @@
 /* ONE-code oracle driver: exercises the reference ONElib (vendored in the
  * reference repo) on arbitrary user schemas, as the byte-parity oracle for
- * modimizer_tpu/io/onecode.py.
+ * modimizer/io/onecode.py.
  *
  *   one_driver write <schema.txt> <spec.tsv> <out> <0|1=binary> <filetype>
  *   one_driver read  <schema.txt> <in> <filetype>

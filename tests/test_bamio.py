@@ -6,7 +6,7 @@ oracle is the documented byte-level semantics plus hand-built streams."""
 import numpy as np
 import pytest
 
-from modimizer_tpu.io import bamio, seqio
+from modimizer.io import bamio, seqio
 
 RC = {65: 84, 67: 71, 71: 67, 84: 65, 78: 78}
 
@@ -114,9 +114,9 @@ def test_bam_through_modutils(tmp_path, bam_file):
     with open(fa, "wb") as f:
         for n, s in zip(names, seqs):
             f.write(b">" + n.encode() + b"\n" + s + b"\n")
-    from modimizer_tpu.core.seqhash import Seqhash
-    from modimizer_tpu.core.modset import Modset
-    from modimizer_tpu.ops.seqhash import ModimizerScanner
+    from modimizer.core.seqhash import Seqhash
+    from modimizer.core.modset import Modset
+    from modimizer.ops.seqhash import ModimizerScanner
 
     def build(path):
         batch, _t = seqio.read_seq_file(str(path), seqio.dna2index_n0(),

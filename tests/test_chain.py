@@ -111,7 +111,7 @@ def make_case(seed, n_reads=40, n_mods=300, n_refs=3):
 
 @pytest.mark.parametrize("seed", [1, 2, 3, 4])
 def test_chain_scan_matches_oracle(seed):
-    from modimizer_tpu.parallel.chain import chain_records
+    from modimizer.parallel.chain import chain_records
     ref, sidx, spos, off = make_case(seed)
     want = oracle(ref, sidx, spos, off)
     got = chain_records(ref, sidx, spos, off, cap=2)  # force widen path

@@ -9,7 +9,7 @@ records and mapped records against an embedded reference."""
 import numpy as np
 import pytest
 
-from modimizer_tpu.io import bamio, cramio, seqio
+from modimizer.io import bamio, cramio, seqio
 
 BASES = np.frombuffer(b"ACGT", np.uint8)
 
@@ -87,6 +87,27 @@ def test_cram_bam_twins_unmapped(tmp_path):
     assert np.array_equal(bc.offsets, bb.offsets)
     assert np.array_equal(bc.quals, bb.quals)
     assert bc.ids == bb.ids == names
+
+
+@pytest.mark.parametrize("file_id", [b"\0" * 20, b"reads.cram".ljust(20, b"\0"),
+                                     bytes(range(1, 21))])
+def test_cram_file_id_is_free_form(tmp_path, file_id):
+    """The 20-byte file id (CRAM 3.0 sec 9) is a label: the records read
+    the same whatever it holds."""
+    rng = np.random.default_rng(12)
+    names, seqs, quals = _reads(rng, 30)
+    cram = tmp_path / "r.cram"
+    cramio.write_cram(str(cram), names, seqs, quals)
+    data = cram.read_bytes()
+    assert data[:6] == b"CRAM\x03\x00"
+    other = tmp_path / "o.cram"
+    other.write_bytes(data[:6] + file_id + data[26:])
+    a, _ = seqio.read_seq_file(str(cram), None, is_qual=True, want_ids=True)
+    b, _ = seqio.read_seq_file(str(other), None, is_qual=True, want_ids=True)
+    assert np.array_equal(a.codes, b.codes)
+    assert np.array_equal(a.offsets, b.offsets)
+    assert np.array_equal(a.quals, b.quals)
+    assert a.ids == b.ids == names
 
 
 def test_cram_multi_container(tmp_path):

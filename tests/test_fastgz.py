@@ -12,8 +12,8 @@ import os
 
 import pytest
 
-from modimizer_tpu.io import fzio
-from modimizer_tpu.io.fzio import GzWriter, gz_decompress_all, read_maybe_gz
+from modimizer.io import fzio
+from modimizer.io.fzio import GzWriter, gz_decompress_all, read_maybe_gz
 
 
 @pytest.fixture

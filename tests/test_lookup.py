@@ -4,10 +4,10 @@ open-addressed probe oracle (modsetIndexFind semantics)."""
 import numpy as np
 import pytest
 
-from modimizer_tpu.core.modset import Modset
-from modimizer_tpu.core.seqhash import Seqhash
-from modimizer_tpu.parallel.lookup import DeviceTable
-from modimizer_tpu.parallel.sharded import build_mesh
+from modimizer.core.modset import Modset
+from modimizer.core.seqhash import Seqhash
+from modimizer.parallel.lookup import DeviceTable
+from modimizer.parallel.sharded import build_mesh
 
 
 @pytest.fixture(scope="module")

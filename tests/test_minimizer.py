@@ -48,8 +48,8 @@ def driver(tmp_path_factory):
 
 
 def test_minimizer_host_oracle_matches_reference(driver):
-    from modimizer_tpu.core.seqhash import Seqhash
-    from modimizer_tpu.ops.minimizer import minimizer_scan_host
+    from modimizer.core.seqhash import Seqhash
+    from modimizer.ops.minimizer import minimizer_scan_host
     rng = np.random.default_rng(3)
     for _ in range(25):
         k = int(rng.integers(8, 24))
@@ -68,8 +68,8 @@ def test_minimizer_host_oracle_matches_reference(driver):
 
 def test_minimizer_device_all_window_set():
     """The device variant computes the exact all-window minimizer set."""
-    from modimizer_tpu.core.seqhash import Seqhash
-    from modimizer_tpu.ops.minimizer import minimizer_scan
+    from modimizer.core.seqhash import Seqhash
+    from modimizer.ops.minimizer import minimizer_scan
     rng = np.random.default_rng(5)
     for _ in range(8):
         k = int(rng.integers(8, 24))

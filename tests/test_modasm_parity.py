@@ -100,7 +100,7 @@ def test_write_read_roundtrip(dataset, tmp_path):
 
 def test_assembly_and_testmods(dataset, tmp_path):
     d = dataset
-    from modimizer_tpu.core.modset import Modset
+    from modimizer.core.modset import Modset
     ms = Modset.read(str(d / "X.mod"))
     cand = [i for i in range(1, ms.max + 1)
             if (ms.info[i] & 3) == 1 and 5 <= ms.depth[i] <= 30]

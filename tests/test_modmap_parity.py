@@ -15,7 +15,7 @@ pytestmark = pytest.mark.skipif(not harness.reference_available(),
 
 
 def run_ours(args, cwd=None):
-    from modimizer_tpu.cli import modmap
+    from modimizer.cli import modmap
     out, err = io.StringIO(), io.StringIO()
     old = sys.stdout, sys.stderr
     code = 0

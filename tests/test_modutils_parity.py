@@ -18,7 +18,7 @@ pytestmark = pytest.mark.skipif(not harness.reference_available(),
 
 def run_ours(args, cwd=None):
     """Run our modutils CLI in-process, capturing stdout/stderr."""
-    from modimizer_tpu.cli import modutils
+    from modimizer.cli import modutils
     out, err = io.StringIO(), io.StringIO()
     old = sys.stdout, sys.stderr
     code = 0
@@ -99,7 +99,7 @@ def test_merge_and_depths(data):
     rc = harness.run_tool("modutils", argv_c)
     code, out, err = run_ours(argv_py)
     assert code == 0
-    from modimizer_tpu.core.modset import Modset
+    from modimizer.core.modset import Modset
     mc = Modset.read(d / "cm.mod")
     mp = Modset.read(d / "pym.mod")
     # deterministic fields: ids/values/table layout and info

@@ -23,15 +23,15 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=4").strip()
 sys.path.insert(0, %(repo)r)
 import numpy as np
-import modimizer_tpu
+import modimizer
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.distributed.initialize(coordinator_address=coord, num_processes=2,
                            process_id=pid)
 assert jax.device_count() == 8 and len(jax.local_devices()) == 4
-from modimizer_tpu.core.seqhash import Seqhash
-from modimizer_tpu.parallel.multihost import MultiHostModsetBuilder
-from modimizer_tpu.parallel.sharded import build_mesh
+from modimizer.core.seqhash import Seqhash
+from modimizer.parallel.multihost import MultiHostModsetBuilder
+from modimizer.parallel.sharded import build_mesh
 
 sh = Seqhash.create(16, 16, 17)
 rng = np.random.default_rng(77)   # same stream on both hosts
@@ -101,8 +101,8 @@ def test_two_process_build_matches_sequential(tmp_path, split_read, snapshot):
     got = np.load(tmp_path / "mh.npz")
 
     # sequential oracle over the SAME global stream
-    from modimizer_tpu.core.seqhash import Seqhash
-    from modimizer_tpu.ops.seqhash import (ModimizerScanner,
+    from modimizer.core.seqhash import Seqhash
+    from modimizer.ops.seqhash import (ModimizerScanner,
                                            first_encounter_unique)
     sh = Seqhash.create(16, 16, 17)
     rng = np.random.default_rng(77)

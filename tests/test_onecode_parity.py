@@ -122,7 +122,7 @@ def test_modtype_parity(tmp_path):
 
 
 def test_varint_roundtrip():
-    from modimizer_tpu.io.onecode import int_put, ltf_read
+    from modimizer.io.onecode import int_put, ltf_read
     rng = np.random.default_rng(0)
     vals = ([0, 1, 63, 64, 8191, 8192, -1, -64, -65, 2 ** 32, -2 ** 40,
              2 ** 62, -2 ** 62]
@@ -133,7 +133,7 @@ def test_varint_roundtrip():
 
 
 def test_huffman_roundtrip():
-    from modimizer_tpu.io.onecode import HuffCodec
+    from modimizer.io.onecode import HuffCodec
     rng = np.random.default_rng(1)
     train = rng.integers(33, 73, size=200000).astype(np.uint8).tobytes()
     vc = HuffCodec()
@@ -151,7 +151,7 @@ def test_huffman_roundtrip():
 
 
 def test_int_list_binary_roundtrip(tmp_path):
-    from modimizer_tpu.io.onecode import OneFile, OneSchema
+    from modimizer.io.onecode import OneFile, OneSchema
     schema = OneSchema.from_text(
         "P 3 tst\nO X 1 3 INT\nD L 1 8 INT_LIST\n")
     path = str(tmp_path / "t.1tst")
@@ -178,7 +178,7 @@ def test_goto_object_and_group(tmp_path):
     codes collide with the universal ;&*/. codes, ONElib.c:159-165.)"""
     import io as _io
     import numpy as np
-    from modimizer_tpu.io.onecode import OneFile, OneSchema
+    from modimizer.io.onecode import OneFile, OneSchema
 
     schema = OneSchema.from_text(
         "P 3 tst\nG g 1 3 INT\nO x 1 3 DNA\nD d 1 6 STRING\n")
@@ -233,7 +233,7 @@ def test_singleton_int_list_binary():
     decrements listLen, then fwrite(0 bytes) != 1 -> die).  Our writer and
     reader round-trip them."""
     import io as _io
-    from modimizer_tpu.io.onecode import OneFile, OneSchema
+    from modimizer.io.onecode import OneFile, OneSchema
 
     schema = OneSchema.from_text("P 3 tst\nO x 1 8 INT_LIST\n")
     buf = _io.BytesIO()
@@ -276,7 +276,7 @@ def test_parallel_one_seq_writer(n_threads, tmp_path):
     unlike the reference's timing-dependent threaded handles
     (ONElib.c:1394-1412)."""
     import numpy as np
-    from modimizer_tpu.io.onecode import OneSeqWriter, ParallelOneSeqWriter
+    from modimizer.io.onecode import OneSeqWriter, ParallelOneSeqWriter
 
     rng = np.random.default_rng(77)
     records = []

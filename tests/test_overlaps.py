@@ -92,11 +92,17 @@ def oracle(rs):
     return out_pairs, n_repeat
 
 
-@pytest.mark.parametrize("seed", [1, 2, 3])
-def test_device_overlap_counts_match_oracle(seed):
-    from modimizer_tpu.parallel.overlaps import overlap_counts
+@pytest.mark.parametrize("seed,slab_pairs", [
+    (1, 1 << 28), (2, 1 << 28), (3, 1 << 28),
+    # slabs of a few groups each: per-slab counts summed on the host
+    (1, 200), (2, 500), (4, 1),
+])
+def test_device_overlap_counts_match_oracle(monkeypatch, seed, slab_pairs):
+    from modimizer.parallel import overlaps
+    monkeypatch.setattr(overlaps, "SLAB_PAIRS", slab_pairs)
     rs = make_readset(seed)
-    got = overlap_counts(rs, dmax=8)  # small dmax: exercises the widen path
+    # small dmax: exercises the widen path
+    got = overlaps.overlap_counts(rs, dmax=8)
     want_pairs, want_rep = oracle(rs)
     assert np.array_equal(got["n_repeat"], want_rep)
     assert np.array_equal(got["bad_repeat"], want_rep > 0)

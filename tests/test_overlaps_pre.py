@@ -76,8 +76,8 @@ def test_device_overlaps_match_serial(dataset, args):
 def test_candidates_match_serial_state(dataset):
     """bad[] and contained[] state arrays agree between backends."""
     sys.path.insert(0, REPO)
-    from modimizer_tpu.core.modset import Modset
-    from modimizer_tpu.core.readset import Readset
+    from modimizer.core.modset import Modset
+    from modimizer.core.readset import Readset
     ms = Modset.read(str(dataset / "X.mod"))
     rs_h = Readset(ms)
     rs_h.file_read(str(dataset / "reads.fa"))

@@ -10,14 +10,14 @@ scan+compact step must produce identical rows.
 import numpy as np
 import pytest
 
-import modimizer_tpu  # noqa: F401
+import modimizer  # noqa: F401
 
 import jax.numpy as jnp
 
-from modimizer_tpu.core.seqhash import Seqhash
-from modimizer_tpu.ops.packed import pack_bits, pack_sw
-from modimizer_tpu.ops.seqhash import scan_bo
-from modimizer_tpu.parallel.sharded import (_hash32_hi, _scan_compact_local,
+from modimizer.core.seqhash import Seqhash
+from modimizer.ops.packed import pack_bits, pack_sw
+from modimizer.ops.seqhash import scan_bo
+from modimizer.parallel.sharded import (_hash32_hi, _scan_compact_local,
                                             _scan_front, _scan_front_u32)
 
 
@@ -81,7 +81,7 @@ def test_scan_kmers_pipeline_u32_front():
     """The full device pipeline (scan_kmers incl. wide-retry tier, and
     scan_stream's exact order) is identical under both fronts, forced via
     the scanner's per-instance policy."""
-    from modimizer_tpu.ops.seqhash import ModimizerScanner
+    from modimizer.ops.seqhash import ModimizerScanner
     rng = np.random.default_rng(41)
     sh = Seqhash.create(16, 16, 17)
     lens = rng.integers(50, 400, size=120)

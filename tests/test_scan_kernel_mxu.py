@@ -1,66 +1,36 @@
-"""MXU-compaction Pallas kernel + new compaction backends vs the XLA
-front-end oracle (interpret mode / CPU jit, small shapes)."""
+"""Compaction backends and the divisibility test vs the plain XLA
+front-end oracle (CPU jit, small shapes)."""
 
 import numpy as np
 import pytest
 
-import modimizer_tpu
+import modimizer
 
-modimizer_tpu.configure_jax()
+modimizer.configure_jax()
 
 import jax.numpy as jnp
 
-from modimizer_tpu.core.seqhash import Seqhash
-from modimizer_tpu.ops import scan_kernel_mxu as SKM
-from modimizer_tpu.ops.packed import mod_is_zero, pack_bits, pack_sw
-from modimizer_tpu.parallel.sharded import _scan_compact_local, _scan_front
+from modimizer.ops.packed import mod_is_zero, pack_bits, pack_sw
+from modimizer.parallel.sharded import _scan_compact_local
 
 
-def _pack32(codes, n_words):
-    ext = np.zeros(n_words * 16, np.uint32)
-    ext[:len(codes)] = codes[:n_words * 16]
-    qq = ext.reshape(-1, 16)
-    w = np.zeros(n_words, np.uint32)
-    for b in range(16):
-        w |= qq[:, b] << np.uint32(30 - 2 * b)
-    return w
-
-
-@pytest.mark.parametrize("k,w,R", [(16, 16, 256), (13, 31, 256),
-                                   (11, 10, 128)])
-def test_mxu_kernel_matches_oracle(k, w, R):
-    sh = Seqhash.create(k, w, 17)
-    rng = np.random.default_rng(42)
-    T = 1
-    nW = T * 128 * R
-    C = 16 * nW
-    codes = rng.integers(0, 4, C + 16).astype(np.uint8)
-    w32 = _pack32(codes, nW + 1)
-    m = C - 777
-    base = np.arange(nW + 1, dtype=np.int64) * 16
-    v16 = np.zeros(nW + 1, np.uint32)
-    for r in range(16):
-        v16 |= ((base + r) < m).astype(np.uint32) << np.uint32(r)
-    bo = 64
-    ok_, om_, tot, ovf = SKM.scan_compact_mxu(
-        jnp.asarray(w32), jnp.asarray(v16), k=k, w=w, factor1=sh.factor1,
-        bo=bo, R=R, SUB=32, interpret=True)
-    ok_, om_ = np.asarray(ok_), np.asarray(om_)
-    live = om_ != 0xFFFFFFFF
-    gpos, isf = SKM.host_gpos(om_, R)
-    got = sorted(zip(gpos[live].tolist(),
-                     ok_[live].astype(np.uint64).tolist(),
-                     isf[live].tolist()))
-
-    sw64 = jnp.asarray(pack_sw(codes, C // 32 + 2))
-    hashes, kmers, pos, isF = _scan_front(sw64, k=k, factor1=sh.factor1, C=C)
-    emit = np.asarray(mod_is_zero(hashes, w)) & (np.asarray(pos) < m)
-    want = sorted(zip(np.asarray(pos)[emit].tolist(),
-                      np.asarray(kmers)[emit].tolist(),
-                      np.asarray(isF)[emit].tolist()))
-    assert got == want
-    assert int(np.asarray(tot)[0, 0]) == len(want)
-    assert int(np.asarray(ovf)[0, 0]) <= bo
+def test_mod_is_zero_lemire_exact():
+    """Direct check of the division-free divisibility test over random
+    hashes and a spread of w (pow2 / odd / even-composite, u32 + u64)."""
+    rng = np.random.default_rng(9)
+    ws = [1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 17, 24, 31, 32, 48, 63, 100,
+          255, 1000, 65537, (1 << 20) + 7]
+    h64 = rng.integers(0, 1 << 63, 4096, dtype=np.uint64) * np.uint64(2) \
+        + rng.integers(0, 2, 4096, dtype=np.uint64)
+    # force plenty of true positives for each w
+    for w in ws:
+        mult = rng.integers(0, 1 << 32, 256, dtype=np.uint64)
+        hs = np.concatenate([h64, mult * np.uint64(w)])
+        got = np.asarray(mod_is_zero(jnp.asarray(hs), w))
+        assert np.array_equal(got, hs % np.uint64(w) == 0), f"u64 w={w}"
+        h32 = hs.astype(np.uint32)
+        got32 = np.asarray(mod_is_zero(jnp.asarray(h32), w))
+        assert np.array_equal(got32, h32 % np.uint32(w) == 0), f"u32 w={w}"
 
 
 @pytest.mark.parametrize("k,w,bo", [(16, 16, 112), (19, 31, 64),
@@ -136,7 +106,7 @@ def test_fusedc_posmajor_bit_identical(k, w, clog):
     layout — must be BYTE-identical to the onehot posmajor oracle (same
     contiguous-position block partition, in-block ranks = stream order),
     both meta flavors, under ragged validity words."""
-    from modimizer_tpu.parallel.sharded import (_expand_valid,
+    from modimizer.parallel.sharded import (_expand_valid,
                                                 _scan_compact_core)
     rng = np.random.default_rng(7)
     f1 = 0x9E3779B97F4A7C15 | 1
@@ -165,12 +135,12 @@ def test_fusedc_posmajor_bit_identical(k, w, clog):
 
 _BLK_PROBE = r"""
 import numpy as np
-import modimizer_tpu
-modimizer_tpu.configure_jax()
+import modimizer
+modimizer.configure_jax()
 import jax.numpy as jnp
-from modimizer_tpu.ops.packed import pack_bits, pack_sw
-from modimizer_tpu.ops.seqhash import scan_bo
-from modimizer_tpu.parallel.sharded import BLK, _scan_compact_local
+from modimizer.ops.packed import pack_bits, pack_sw
+from modimizer.ops.seqhash import scan_bo
+from modimizer.parallel.sharded import BLK, _scan_compact_local
 k, w = 16, 16
 f1 = 0x9E3779B97F4A7C15 | 1
 C = 1 << 15
@@ -212,9 +182,9 @@ def test_fusedd_wide_pair_path_bit_identical(k, w, posmajor):
     bit-identical to the shipped sublane64 route — it is the measured-
     slower ablation kept runnable (docs/PERF.md round-5) and the pair
     Lemire emit test deserves its own regression."""
-    from modimizer_tpu.core.seqhash import Seqhash as SH
-    from modimizer_tpu.ops.seqhash import scan_bo
-    from modimizer_tpu.parallel.sharded import (BLK, _expand_valid,
+    from modimizer.core.seqhash import Seqhash as SH
+    from modimizer.ops.seqhash import scan_bo
+    from modimizer.parallel.sharded import (BLK, _expand_valid,
                                                 _scan_compact_core)
     sh = SH.create(k, w, 17)
     C = 32 * BLK

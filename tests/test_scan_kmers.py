@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-import modimizer_tpu
+import modimizer
 
-modimizer_tpu.configure_jax()
+modimizer.configure_jax()
 
-from modimizer_tpu.core.seqhash import Seqhash
-from modimizer_tpu.ops.seqhash import ModimizerScanner
+from modimizer.core.seqhash import Seqhash
+from modimizer.ops.seqhash import ModimizerScanner
 
 
 def _mk(rng, n_reads, lo, hi):
@@ -142,8 +142,8 @@ def test_expand_sparse_valid_matches_dense():
     """Device expansion == the native dense plane for random read layouts
     and live counts (incl. m on/off word boundaries, zero exceptions)."""
     import jax.numpy as jnp
-    from modimizer_tpu.native import lib as native_lib
-    from modimizer_tpu.ops.packed import expand_sparse_valid
+    from modimizer.native import lib as native_lib
+    from modimizer.ops.packed import expand_sparse_valid
     L = native_lib()
     rng = np.random.default_rng(9)
     k = 16
@@ -172,8 +172,8 @@ def test_densify_search_equals_roll(monkeypatch):
     bit-identical chunk outputs (kmers path and meta path) on multi-chunk
     streams."""
     import jax.numpy as jnp
-    from modimizer_tpu.ops.device_scan import _scan_chunk
-    from modimizer_tpu.ops.packed import pack_sw
+    from modimizer.ops.device_scan import _scan_chunk
+    from modimizer.ops.packed import pack_sw
     sh = Seqhash.create(16, 16, 17)
     rng = np.random.default_rng(10)
     codes, offsets = _mk(rng, 150, 50, 900)
@@ -190,7 +190,7 @@ def test_densify_search_equals_roll(monkeypatch):
                                     factor1=sh.factor1, bo=112, cap=1024)
         outs[mode + "_meta"] = (np.asarray(km), np.asarray(meta),
                                 int(tot))
-        import modimizer_tpu.ops.device_scan as ds
+        import modimizer.ops.device_scan as ds
         ds._scan_chunk.clear_cache()
         ds._scan_chunk_kmers.clear_cache()
         ds._scan_chunk_kmers_sparse.clear_cache()

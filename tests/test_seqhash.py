@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from modimizer_tpu.core.seqhash import Seqhash
-from modimizer_tpu.ops.seqhash import (ModimizerScanner, _validity,
+from modimizer.core.seqhash import Seqhash
+from modimizer.ops.seqhash import (ModimizerScanner, _validity,
                                        first_encounter_unique)
-from modimizer_tpu.utils.glibc_random import GlibcRandom
+from modimizer.utils.glibc_random import GlibcRandom
 
 
 def test_glibc_factors_known_values():

@@ -17,7 +17,7 @@ pytestmark = pytest.mark.skipif(not harness.reference_available(),
 
 def run_cli(tool, args, stdout_bytes=False):
     import importlib
-    mod = importlib.import_module(f"modimizer_tpu.cli.{tool}")
+    mod = importlib.import_module(f"modimizer.cli.{tool}")
     out = io.BytesIO()
     err = io.StringIO()
     old = sys.stdout, sys.stderr
@@ -117,7 +117,7 @@ def test_seqhoco(data):
 def test_native_parsers_match_numpy_twins():
     """The native FASTA/FASTQ parsers reproduce the numpy oracles exactly."""
     import numpy as np
-    from modimizer_tpu.io import seqio as sq
+    from modimizer.io import seqio as sq
     rng = np.random.default_rng(17)
     B = "ACGTNacgtn"
     fa = []
@@ -157,7 +157,7 @@ def test_native_histograms_match_bincount():
     """byte_hist256 / u16_hist replace np.bincount on whole-file arrays
     (which casts to int64, an 8x temporary); exactness check."""
     import numpy as np
-    from modimizer_tpu.native import byte_hist256, u16_hist
+    from modimizer.native import byte_hist256, u16_hist
     rng = np.random.default_rng(3)
     a = rng.integers(0, 256, size=1_000_003).astype(np.uint8)
     assert np.array_equal(byte_hist256(a),
@@ -226,8 +226,8 @@ def test_incomplete_final_record_quirk(tmp_path):
 def test_incomplete_record_streaming_matches_whole(tmp_path):
     """The parse-ahead streaming producer applies the same drop+message."""
     import numpy as np
-    from modimizer_tpu.io import seqio as sio
-    from modimizer_tpu.io.stream_seq import iter_seq_batches
+    from modimizer.io import seqio as sio
+    from modimizer.io.stream_seq import iter_seq_batches
     p = tmp_path / "t.fa"
     p.write_bytes(b">a\nACGT\nGGTT\n>b\nCCCC\n>c\nAAAA")  # c incomplete
     conv = sio.dna2index_n0()

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from modimizer_tpu.core.seqhash import Seqhash
-from modimizer_tpu.ops.seqhash import ModimizerScanner, first_encounter_unique
-from modimizer_tpu.parallel.sharded import ShardedModsetBuilder, build_mesh
+from modimizer.core.seqhash import Seqhash
+from modimizer.ops.seqhash import ModimizerScanner, first_encounter_unique
+from modimizer.parallel.sharded import ShardedModsetBuilder, build_mesh
 
 import jax
 
@@ -37,7 +37,7 @@ def test_sharded_build_matches_sequential():
 @pytest.mark.skipif(jax.device_count() < 2, reason="needs multiple devices")
 def test_sharded_build_feeds_canonical_modset(tmp_path):
     """Sharded build -> canonical byte-exact Modset file."""
-    from modimizer_tpu.core.modset import Modset
+    from modimizer.core.modset import Modset
     rng = np.random.default_rng(5)
     sh = Seqhash.create(16, 16, 17)
     seqs = [rng.integers(0, 4, size=300).astype(np.uint8) for _ in range(50)]
@@ -65,8 +65,8 @@ def test_sharded_build_feeds_canonical_modset(tmp_path):
 @pytest.mark.skipif(jax.device_count() < 2, reason="needs multiple devices")
 def test_sharded_merge_matches_native():
     """Device merge == exact modsetMerge semantics (modset.c:106-128)."""
-    from modimizer_tpu.core.modset import Modset
-    from modimizer_tpu.parallel.sharded import sharded_merge
+    from modimizer.core.modset import Modset
+    from modimizer.parallel.sharded import sharded_merge
     rng = np.random.default_rng(33)
     sh = Seqhash.create(16, 16, 17)
 
@@ -208,8 +208,8 @@ def test_sharded_merge_clears_flags_of_new_entries():
     entry it lands on — so B-only kmers arrive with their flag bits
     CLEARED (fresh entry info is 0, modset.c:124-125), while A-only kmers
     keep full info.  Caught by fuzz_sharded trial 7 (round 3)."""
-    from modimizer_tpu.core.modset import Modset
-    from modimizer_tpu.parallel.sharded import sharded_merge
+    from modimizer.core.modset import Modset
+    from modimizer.parallel.sharded import sharded_merge
     sh_args = (16, 16, 17)
     ms_a = Modset(Seqhash.create(*sh_args), 20)
     ms_a.add_batch(np.array([11, 22, 33], np.uint64))

@@ -9,10 +9,10 @@ import gzip
 import numpy as np
 import pytest
 
-from modimizer_tpu.core.seqhash import Seqhash
-from modimizer_tpu.io import seqio
-from modimizer_tpu.io.stream_seq import iter_fasta_batches, iter_seq_batches
-from modimizer_tpu.ops.seqhash import ModimizerScanner
+from modimizer.core.seqhash import Seqhash
+from modimizer.io import seqio
+from modimizer.io.stream_seq import iter_fasta_batches, iter_seq_batches
+from modimizer.ops.seqhash import ModimizerScanner
 
 BASES = np.frombuffer(b"ACGT", np.uint8)
 

@@ -13,8 +13,8 @@ chains are longest and in-group conflicts are plentiful.
 import numpy as np
 import pytest
 
-from modimizer_tpu.core.modset import Modset
-from modimizer_tpu.core.seqhash import Seqhash
+from modimizer.core.modset import Modset
+from modimizer.core.seqhash import Seqhash
 
 
 def oracle_insert(ms, kmers, counts=None):
